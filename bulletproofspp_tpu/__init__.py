@@ -1,7 +1,7 @@
-"""Bulletproofs++ — a TPU-native zero-knowledge range-proof framework.
+"""Bulletproofs++ — a JAX zero-knowledge range-proof framework for NVIDIA GPUs.
 
 A from-scratch reimplementation of the capabilities of the Haskell
-reference (Liam-Eagen/BulletproofsPP) designed for TPU hardware:
+reference (Liam-Eagen/BulletproofsPP) designed for batched accelerator work:
 
 - secp256k1 field/curve arithmetic as batched limb-decomposed JAX/Pallas
   kernels (``bulletproofspp_tpu.ops``),

@@ -4,7 +4,7 @@ The reference imports its group law from the external ``elliptic-curve``
 package (reference: stack.yaml:44); this module internalizes it.  Points
 are affine tuples ``(x, y)`` of ints, or ``None`` for the identity.  A
 Jacobian representation ``(X, Y, Z)`` is provided for the host MSM
-fallback; the production MSM runs on TPU (``bulletproofspp_tpu.ops``).
+fallback; the production MSM runs on the GPU (``bulletproofspp_tpu.ops``).
 """
 
 from __future__ import annotations

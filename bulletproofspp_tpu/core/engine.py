@@ -14,7 +14,7 @@ engine provides the three hot EC primitives:
 
 ``HostEngine`` is the exact-integer ground truth.  ``JaxEngine``
 (bulletproofspp_tpu.ops.engine) runs the same math as batched limb
-kernels on TPU and must produce identical points.
+kernels on the device and must produce identical points.
 """
 
 from __future__ import annotations
@@ -107,10 +107,9 @@ _default_engine = None
 
 
 def default_engine():
-    """Process-wide engine: JAX-backed when available, host otherwise.
-
-    Controlled by env var BPPP_ENGINE in {"host", "jax"}.
-    """
+    """Process-wide engine chosen by env var BPPP_ENGINE in {"host", "jax"}
+    (default "jax").  A JAX engine that cannot be built raises: falling
+    back to the host would hide a missing device."""
     global _default_engine
     if _default_engine is None:
         import os
@@ -118,13 +117,12 @@ def default_engine():
         choice = os.environ.get("BPPP_ENGINE", "jax")
         if choice == "host":
             _default_engine = HostEngine()
-        else:
-            try:
-                from ..ops.engine import JaxEngine
+        elif choice == "jax":
+            from ..ops.engine import JaxEngine
 
-                _default_engine = JaxEngine()
-            except Exception:
-                _default_engine = HostEngine()
+            _default_engine = JaxEngine()
+        else:
+            raise ValueError(f"BPPP_ENGINE must be 'host' or 'jax', not {choice!r}")
     return _default_engine
 
 

@@ -3,8 +3,8 @@
 The reference implements these as hand-rolled 256-bit limb arithmetic
 (reference: src/Data/Field/Galois/FastPrime/Internal.hs) plus the generic
 ``Prime p`` type from the galois-field package.  On the host side we use
-Python integers (exact, GMP-backed); the TPU kernels in
-``bulletproofspp_tpu.ops.field_ops`` implement the same arithmetic on
+Python integers (exact, GMP-backed); the device kernels in
+``bulletproofspp_tpu.ops.limb`` implement the same arithmetic on
 16x16-bit limb planes and are tested against this module.
 """
 

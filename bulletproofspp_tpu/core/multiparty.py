@@ -8,15 +8,15 @@ per-party commitment vectors elementwise in the group, runs the REAL
 oracle on the aggregate, and broadcasts the result until parties stop
 (``multiPartyDealer``, ZKP.hs:124-131).
 
-This module is the faithful TPU-framework equivalent, with the same
+This module is the faithful equivalent here, with the same
 contract and the same status (aggregation semantics + transport harness;
 a fully multiparty BP++ prover additionally needs the MPC cross-term
 protocol, which the reference also does not implement).  The transport is
 any object with ``send``/``recv``; ``LocalChannel`` gives in-process
 queues so the combinators are testable without a cluster (SURVEY §4
-"multi-node testing without a cluster").  In a TPU pod deployment the
-dealer reduction maps to a ``psum``-style group-add over DCN with host 0
-as dealer (SURVEY §5 distributed-backend mapping).
+"multi-node testing without a cluster").  In a multi-host deployment the
+dealer reduction maps to a gather-and-fold group-add across hosts with
+host 0 as dealer (SURVEY §5 distributed-backend mapping).
 """
 
 from __future__ import annotations

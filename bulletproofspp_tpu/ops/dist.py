@@ -1,8 +1,8 @@
-"""Multi-host runtime skeleton (VERDICT r1 item 6).
+"""Multi-host runtime skeleton.
 
 The reference is a single OS process (SURVEY §5: "Distributed
-communication backend: none").  This module supplies the TPU-framework
-equivalent: a ``jax.distributed`` entry point, DCN-aware global mesh
+communication backend: none").  This module supplies the multi-process
+equivalent: a ``jax.distributed`` entry point, global mesh
 construction over every process's devices, and global-array placement
 helpers so the sharded MSM (ops.sharded) runs unchanged across process
 boundaries.  Fiat-Shamir stays host-replicated — every process computes

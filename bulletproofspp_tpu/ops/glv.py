@@ -3,7 +3,7 @@
 The reference decomposes scalars into Eisenstein-integer halves for its
 129-row shared-doubling MSM (reference: src/Data/Field/Galois/FastPrime.hs:
 186-205 ``decomposeFastPrimeEis``, src/Commitment.hs:226-306 SplitScalar).
-The TPU build keeps the same mathematical idea — k = k1 + k2*lambda with
+This build keeps the same mathematical idea — k = k1 + k2*lambda with
 |k1|, |k2| ~ sqrt(n) — but derives the reduced lattice basis by plain
 extended-Euclid on (n, lambda) at import time and recodes the halves into
 signed base-16 digit rows for the vectorized Straus MSM (ops.msm).

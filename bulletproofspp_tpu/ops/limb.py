@@ -2,12 +2,12 @@
 
 The reference implements Fq as hand-rolled 4x64-bit limb arithmetic with a
 sparse-prime reduction (reference: src/Data/Field/Galois/FastPrime/Internal.hs:
-mulField# 939-973, addField# 903-924, invField# 977-983).  TPUs have no
-64-bit integer multiplier, so this module re-designs the same math for the
-VPU: a field element is 16 limbs of 16 bits stored in ``uint32`` planes with
-the **limb axis leading** — an element batch is an array of shape
-``(16, ...)`` so that every limb op vectorizes over the trailing batch axes
-(8x128 VPU lanes).
+mulField# 939-973, addField# 903-924, invField# 977-983).  This module
+re-designs the same math as 32-bit vector work: a field element is 16
+limbs of 16 bits stored in ``uint32`` planes with the **limb axis
+leading** — an element batch is an array of shape ``(16, ...)`` so that
+every limb op vectorizes over the trailing batch axes, and every limb
+product fits a ``uint32`` exactly.
 
 Key invariants:
   * inputs/outputs of every public op are "carried" limb arrays: each limb
@@ -370,7 +370,7 @@ _INV_EXP_BITS = np.array(
 @jax.jit
 def inv(a):
     """Fermat inverse a^(p-2); 0 -> 0.  (The reference calls GMP's
-    recipModBigNat, reference: Internal.hs:977-983; on TPU a fixed
+    recipModBigNat, reference: Internal.hs:977-983; on the device a fixed
     square-and-multiply scan keeps shapes static.)"""
     bits = jnp.asarray(_INV_EXP_BITS)
 

@@ -2,20 +2,18 @@
 
 Re-design of the reference's row-serial Straus MSM
 (reference: src/Commitment.hs:311-398 ``FastInnerProduct.innerProduct``)
-for the TPU execution model:
+as fixed-shape batched device work:
 
   * scalars are GLV-split on host (ops.glv) into two ~sqrt(n) halves, so a
     k*P lane becomes two lanes (P, phi(P)) — same trick as the reference's
     129-row Eisenstein digit MSM, but with 4-bit signed digits and 33 rows;
   * per lane, a 9-entry multiple table [0P..8P] is built with 7 batched
-    complete additions (ops.curve.padd — branchless, identity-safe);
-  * digit selection is ONE-HOT masked accumulation (TPU gathers execute
-    on the scalar unit and dominate at scale); signs select from a
+    complete additions (ops.curve.padd_auto — branchless, identity-safe);
+  * digit selection is ONE-HOT masked accumulation; signs select from a
     pre-negated table (no data-dependent control flow anywhere);
   * the row×lane selected points are tree-reduced over lanes (log2 L
     batched adds — the per-row reduction the reference does serially), and
-    the 33 row sums are Horner-combined in a single fused Pallas kernel
-    (falling back to ``lax.scan`` off-TPU).
+    the 33 row sums are Horner-combined under ``lax.scan``.
 
 Work: ~L*(33 + 8) complete adds per MSM of L lanes — Pippenger-class for
 the proof-sized MSMs here, with zero data-dependent shapes.
@@ -39,17 +37,6 @@ from . import limb, curve
 from .glv import ROWS
 
 U32 = jnp.uint32
-
-
-# Above this lane count the flat multiple tables ((144+288+144, L) u32 =
-# ~2.3 KB/lane of HBM) approach v5e HBM capacity (~9.4 GB at 4M lanes on
-# top of the ~4 GB of inputs/partials); the VMEM-scratch select variant
-# (table built per lane block inside the kernel, never materialized in
-# HBM) is ~5% slower at small L (measured, BENCH_NOTES) but removes the
-# table's HBM footprint entirely.  Static threshold — chosen once here,
-# not via env var, so every call site compiles the same choice
-# (a trace-time env read would be silently frozen by the jit cache).
-_SCRATCH_TABLE_MIN_L = 1 << 21
 
 
 def _table(px, py, pz):
@@ -79,27 +66,19 @@ def _table(px, py, pz):
 
 
 def _reduce_lanes(sel, width):
-    """Tree-reduce points over the last axis, work-optimal (width-1 adds)
-    with few distinct lowerings: radix-8 levels fold 8 lanes with 7
-    complete adds that all share ONE shape (so the jitted padd lowers once
-    per level), giving ceil(log2(width)/3) lowerings instead of log2.
-    Returns the reduced tuple with last axis 1."""
+    """Tree-reduce points over the last axis by halving: width-1 complete
+    adds in log2(width) calls, so the compiled graph holds log2(width)
+    additions.  Returns the reduced tuple with last axis 1."""
     assert width & (width - 1) == 0, "lane count must be a power of two"
     while width > 1:
-        radix = 8 if width % 8 == 0 else (4 if width % 4 == 0 else 2)
-        groups = width // radix
-        resh = tuple(t.reshape(*t.shape[:-1], groups, radix) for t in sel)
-        parts = [tuple(t[..., i] for t in resh) for i in range(radix)]
-        while len(parts) > 1:
-            parts = [curve.padd_auto(parts[i], parts[i + 1]) for i in range(0, len(parts), 2)]
-        sel = parts[0]
-        width = groups
+        width //= 2
+        sel = curve.padd_auto(tuple(t[..., :width] for t in sel), tuple(t[..., width:] for t in sel))
     return sel
 
 
 def _dbl4(acc):
-    """Four doublings as a scan (single pdbl lowering)."""
-    return lax.scan(lambda a, _: (curve.pdbl(a), None), acc, None, length=4)[0]
+    """Four doublings as a scan (single doubling lowering)."""
+    return lax.scan(lambda a, _: (curve.pdbl_auto(a), None), acc, None, length=4)[0]
 
 
 def msm_kernel(px, py, pz, absd, sgn):
@@ -113,35 +92,10 @@ def msm_kernel(px, py, pz, absd, sgn):
     L = px.shape[-1]
     rows = absd.shape[0]
 
-    if curve._pallas_enabled() and L >= 1024 and (L & (L - 1)) == 0:
-        # large MSMs: table -> flat layout, then the fused Pallas
-        # select+reduce kernel (digit selection never round-trips HBM),
-        # the 8:1 reduce chain, and the fused tail+Horner — ~5 launches
-        # total, each at the fused-padd compute rate
-        from . import pallas_field
-
-        if L >= _SCRATCH_TABLE_MIN_L:
-            # HBM-capacity regime: single-kernel variant, table lives
-            # only in VMEM scratch (built once per lane block at the
-            # r==0 program; the 8x-longer build programs bubble the
-            # block pipeline ~5%, measured, but the (576, L) table
-            # never exists in HBM)
-            flat = pallas_field.select_reduce_fused_pallas(px, py, pz, absd, sgn)
-        else:
-            fx, fy2, fz = pallas_field.table_flat_pallas(px, py, pz)
-            flat = pallas_field.select_reduce_pallas(fx, fy2, fz, absd, sgn)
-        W = L // 8
-        while W > 128:
-            f = min(8, W // 128)
-            flat = pallas_field.reduce_block_pallas(flat, factor=f)
-            W //= f
-        return pallas_field.tail_horner_pallas(flat, rows)
-
     tx, ty2, tz = _table(px, py, pz)
 
-    # digit selection as ONE-HOT masked accumulation, not a gather: TPU
-    # gathers run on the scalar unit and dominate the whole MSM at scale;
-    # 9 (resp. 18 signed) full-width masked adds are pure VPU work
+    # digit selection as ONE-HOT masked accumulation: 9 (resp. 18 signed)
+    # full-width masked adds, no gather
     def onehot_select(table, idx):
         n_entries = table.shape[1]
         acc = jnp.zeros((limb.NLIMB, rows, L), U32)
@@ -155,38 +109,14 @@ def msm_kernel(px, py, pz, absd, sgn):
     sely = onehot_select(ty2, idxy)
     selz = onehot_select(tz, absd)
 
-    if curve._pallas_enabled() and L >= 128 and (L & (L - 1)) == 0:
-        # fused Pallas reduction: each launch narrows the row-major
-        # (16, ROWS*L) planes 8:1 with in-VMEM halving adds (no wasted
-        # lanes, no per-level pad/reshape traffic), then ONE launch
-        # roll-reduces the last 128 lanes/row and runs the full Horner —
-        # 4 launches for a 65536-lane MSM instead of ~20 padd dispatches
-        from . import pallas_field
-
-        flat = tuple(t.reshape(limb.NLIMB, rows * L) for t in (selx, sely, selz))
-        W = L
-        while W > 128:
-            f = min(8, W // 128)
-            flat = pallas_field.reduce_block_pallas(flat, factor=f)
-            W //= f
-        return pallas_field.tail_horner_pallas(flat, rows)
-
     # tree-reduce over lanes (the reference's per-row serial adds,
     # reference: Commitment.hs:331-335, become log2(L) batched adds)
     sel = _reduce_lanes((selx, sely, selz), L)
 
-    if curve._pallas_enabled():
-        # ONE fused kernel for the whole 33-row accumulation (otherwise
-        # ~165 width-1 point ops of pure dispatch latency)
-        from . import pallas_field
-
-        rx, ry, rz = (t[..., 0] for t in sel)  # (16, ROWS)
-        return pallas_field.horner_pallas(rx, ry, rz)
-
     rows = tuple(jnp.moveaxis(t[..., :1], 1, 0) for t in sel)  # (ROWS, 16, 1)
 
     def horner(acc, row):
-        return curve.padd(_dbl4(acc), row), None
+        return curve.padd_auto(_dbl4(acc), row), None
 
     # identity derived from the inputs so its sharding/varying-axes type
     # matches the scan body output under shard_map
@@ -194,54 +124,6 @@ def msm_kernel(px, py, pz, absd, sgn):
     init = (zero, zero.at[0].set(1), zero)
     acc, _ = lax.scan(horner, init, rows)
     return acc
-
-
-def precompute_flat_table(px, py, pz):
-    """Flat multiple tables for a FIXED basis, to be cached across MSM
-    calls: (144, L), (288, L), (144, L) device arrays (9 x/z entries,
-    18 signed y entries; ~2.3 KB/lane of HBM).
-
-    The basis of a setup never changes (reference: the deterministic
-    getPoints stream, app/Main.hs:68-72 — the engine already caches the
-    packed basis per setup), so its 0P..8P tables are pure
-    precomputation: caching them removes the 7 table-build adds from
-    every subsequent MSM's 40 adds/lane (-17% of the hot path).  Only
-    valid on the Pallas path (L a multiple of 1024)."""
-    from . import pallas_field
-
-    return pallas_field.table_flat_pallas(px, py, pz)
-
-
-@jax.jit
-def msm_tabled_kernel(fx, fy2, fz, absd, sgn):
-    """``msm_kernel`` with the table build hoisted out (see
-    ``precompute_flat_table``): select+reduce, the 8:1 reduce chain, and
-    the fused tail+Horner — 33 complete adds per lane instead of 40."""
-    from . import pallas_field
-
-    rows, L = absd.shape
-    flat = pallas_field.select_reduce_pallas(fx, fy2, fz, absd, sgn)
-    W = L // 8
-    while W > 128:
-        f = min(8, W // 128)
-        flat = pallas_field.reduce_block_pallas(flat, factor=f)
-        W //= f
-    return pallas_field.tail_horner_pallas(flat, rows)
-
-
-def tabled_supported(L: int) -> bool:
-    """The tabled path needs the Pallas kernels and their lane layout —
-    and must stay OUT of the HBM-capacity regime: at >= _SCRATCH_TABLE_MIN_L
-    lanes the (576, L) flat table is the multi-GB footprint the
-    VMEM-scratch kernel variant exists to avoid (msm_kernel's own branch
-    above), so a cached table would OOM exactly where production
-    switches away from it."""
-    return (
-        curve._pallas_enabled()
-        and 1024 <= L < _SCRATCH_TABLE_MIN_L
-        and (L & (L - 1)) == 0
-        and L % 1024 == 0
-    )
 
 
 def fold_mul_kernel(pex, pey, pez, pox, poy, poz, de, se, do, so):
@@ -271,7 +153,7 @@ def fold_mul_kernel(pex, pey, pez, pox, poy, poz, de, se, do, so):
             lax.dynamic_index_in_dim(toy2, d_o + 9 * s_o, axis=1, keepdims=False),
             lax.dynamic_index_in_dim(toz, d_o, axis=1, keepdims=False),
         )
-        return curve.padd(curve.padd(acc, pe), po), None
+        return curve.padd_auto(curve.padd_auto(acc, pe), po), None
 
     xs = (de.astype(jnp.int32), se.astype(jnp.int32), do.astype(jnp.int32), so.astype(jnp.int32))
     zero = jnp.zeros_like(pex)
@@ -286,8 +168,8 @@ def complete_square_kernel(g0x, g0y, g0z, e0x, e0y, e0z, g1x, g1y, g1z, de, se, 
     src/Bulletproof/InnerProductArgument.hs:194-206 square completion)."""
     rp = fold_mul_kernel(g0x, g0y, g0z, e0x, e0y, e0z, de, se, do, so)
     g1 = (g1x, g1y, g1z)
-    gx = curve.padd(g1, rp)
-    hy = curve.padd(g1, curve.pneg(rp))
+    gx = curve.padd_auto(g1, rp)
+    hy = curve.padd_auto(g1, curve.pneg(rp))
     return gx + hy
 
 

@@ -2,7 +2,7 @@
 
 The reference is a single OS process; its only distribution hooks are the
 multiparty dealer stubs that sum per-party commitment vectors
-(reference: src/ZKP.hs:114-131).  The TPU framework makes the MSM itself
+(reference: src/ZKP.hs:114-131).  This framework makes the MSM itself
 the distributed object (SURVEY §2 parallelism mapping):
 
   * mesh axis ``pts``  — data parallelism over MSM lanes (the DP analog):
@@ -13,13 +13,13 @@ the distributed object (SURVEY §2 parallelism mapping):
     and the partial results are Horner-combined with the appropriate
     doubling shifts.
 
-Partial results are exchanged with ``lax.all_gather`` over ICI and reduced
+Partial results are exchanged with ``lax.all_gather`` (NCCL over NVLink
+on the GPU) and reduced
 with complete point additions on every device (point addition is a group
 op, not a ring sum, so ``psum`` does not apply — the gather+fold IS the
 collective).  The result is replicated.
 
-Used by batch verification (core.batch) and the driver's multi-chip dry
-run (__graft_entry__.dryrun_multichip).
+Used by batch verification (core.batch) through ShardedJaxEngine.
 """
 
 from __future__ import annotations
@@ -106,9 +106,9 @@ def sharded_msm(mesh: Mesh, px, py, pz, absd, sgn):
 
         def horner(tot, w):
             tot = lax.scan(
-                lambda a, _: (curve.pdbl(a), None), tot, None, length=4 * rows_local
+                lambda a, _: (curve.pdbl_auto(a), None), tot, None, length=4 * rows_local
             )[0]
-            return curve.padd(tot, tuple(g[w] for g in gw)), None
+            return curve.padd_auto(tot, tuple(g[w] for g in gw)), None
 
         tot = tuple(g[0] for g in gw)
         if nwin > 1:

@@ -1,10 +1,10 @@
-// Native host-side scalar pipeline for the TPU MSM engine.
+// Native host-side scalar pipeline for the device MSM engine.
 //
 // The reference implements its scalar machinery at the native level
 // (GHC unboxed primops + GMP, reference:
 // src/Data/Field/Galois/FastPrime/Internal.hs; GLV decomposition,
 // reference: src/Data/Field/Galois/FastPrime.hs:186-205).  This library is
-// the equivalent layer for the TPU build: it turns 256-bit scalars into
+// the equivalent layer for this build: it turns 256-bit scalars into
 // the fixed-shape signed-digit arrays the device kernels consume
 // (ops/glv.py documents the math; this is the production path, the Python
 // implementation is the fallback and ground truth).

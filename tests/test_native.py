@@ -15,7 +15,12 @@ from bulletproofspp_tpu.ops import glv
 
 rng = random.Random(77)
 
-pytestmark = pytest.mark.skipif(native.get_lib() is None, reason="native lib unavailable")
+
+
+@pytest.fixture(autouse=True)
+def _native_lib():
+    if native.get_lib() is None:
+        pytest.skip("native lib unavailable (no g++)")
 
 
 def _reconstruct(absd, sgn, col):

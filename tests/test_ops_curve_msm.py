@@ -131,3 +131,24 @@ def test_basevec_cache_is_bounded():
     # most-recent entry still hits (identity check passes)
     bv = eng._bv_cache[id(keep[-1])][1]
     assert eng.basevec_cached(keep[-1]) is bv
+
+
+@pytest.mark.parametrize("lanes", [128, 1024, 4096])
+def test_xla_msm_matches_host(lanes):
+    """msm_kernel on the XLA path at lane counts from 128 to 4096 lanes:
+    P_i = 2^i G, so the exact answer is one host scalar multiple
+    (sum s_i 2^i mod R) G."""
+    n = lanes // 2
+    pts, p = [], ec.G
+    for _ in range(n):
+        pts.append(p)
+        p = ec.dbl(p)
+    scalars = [rng.randrange(R) for _ in range(n)]
+    halves, lane_pts = [], []
+    for s, q in zip(scalars, pts):
+        halves += list(glv.split(s))
+        lane_pts += [q, _endo_host(q)]
+    absd, sgn = glv.recode_batch(halves)
+    px, py, pz = curve.from_affine_host(lane_pts)
+    got = curve.to_affine_host(msm.run_msm(px, py, pz, jax.numpy.asarray(absd), jax.numpy.asarray(sgn)))[0]
+    assert got == ec.scalar_mul(sum(s << i for i, s in enumerate(scalars)) % R, ec.G)

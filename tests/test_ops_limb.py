@@ -163,15 +163,15 @@ def test_mul_dropped_carry_regression():
     got = limb.unpack_ints(np.asarray(limb.normalize(limb.mul(a, a))))
     assert got == [x * x % Q] * 8
 
-    # pallas kernel path (interpret): the fused padd uses the same mul;
-    # exercise it via a point with the offending coordinate arithmetic
-    from bulletproofspp_tpu.ops.pallas_field import _mul_f16 as pallas_mul
-    import jax
+    # the CUDA kernel's multiply (host build): its addition squares X1 = X2
+    # = x in t0, so on this off-curve input it must agree with the XLA
+    # polynomial exactly
+    from bulletproofspp_tpu.ops import curve, padd_cuda
 
-    got_p = limb.unpack_ints(
-        np.asarray(limb.normalize(jax.jit(pallas_mul)(a, a)))
-    )
-    assert got_p == [x * x % Q] * 8
+    p = (a, a, a)
+    want = [limb.unpack_ints(np.asarray(limb.normalize(c))) for c in curve.padd(p, p)]
+    got = [limb.unpack_ints(np.asarray(limb.normalize(c))) for c in padd_cuda.padd(p, p)]
+    assert got == want
 
     # Fermat-chain stress: long square-and-multiply chains walk through
     # structured values that uncover carry-bound violations

@@ -143,7 +143,7 @@ def test_verify_not_blocked_behind_prove_batch():
 def test_verify_chunked_by_signature_and_pow2():
     """A mixed-schema verify wave larger than max_verify_fuse splits into
     per-signature power-of-two chunks (bounding the device shapes live
-    traffic can compile — the r5 TPU serve stall); verdicts stay per
+    traffic can compile, so no live batch waits on a compile); verdicts stay per
     request, a tampered proof localizes within its chunk, and an
     undecodable one answers False without failing its chunkmates."""
     from bulletproofspp_tpu.serve import ProofService
